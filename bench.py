@@ -63,17 +63,19 @@ def measure_baseline() -> float:
 
 def main() -> None:
     n_iterations = int(os.environ.get("BENCH_ITERATIONS", "2000"))
-    # 16 fused chains is the per-chip deployment packing (independent
-    # chains amortize the kernel's fixed per-sweep cost; GWCoGAPS-style
+    # 16 vmapped chains is the per-chip deployment packing (independent
+    # chains amortize the sweep's fixed per-step cost; GWCoGAPS-style
     # production runs 4+ chains per worker, reference:
     # R/DistributedCogaps.R:56-67)
     n_chains = int(os.environ.get("BENCH_CHAINS", "16"))
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-    import jax
     from cogaps_tpu.io import parsers
     from cogaps_tpu.params import CogapsParams
     from cogaps_tpu.bench_harness import run_throughput
+    from cogaps_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     D, _, _ = parsers.read_matrix(GIST_CSV)
     params = CogapsParams(n_patterns=7, n_iterations=n_iterations, seed=42,

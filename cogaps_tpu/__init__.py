@@ -1,6 +1,6 @@
-"""cogaps_tpu — TPU-native Bayesian non-negative matrix factorization.
+"""cogaps_tpu — Bayesian non-negative matrix factorization on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 FertigLab/CoGAPS (Coordinated Gene Activity in Pattern Sets): atomic-prior
 Gibbs-sampled NMF ``D ~ A @ P.T`` with per-element uncertainty, two-phase
 annealed MCMC, distributed subset+consensus mode, and the downstream

@@ -17,7 +17,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cogaps_tpu",
-        description="TPU-native CoGAPS: Bayesian non-negative matrix "
+        description="CoGAPS on JAX: Bayesian non-negative matrix "
                     "factorization (D ~ A P^T with an atomic prior)")
     p.add_argument("data", help="input matrix: csv/tsv/mtx/gct/h5/h5ad")
     p.add_argument("-o", "--output", default="cogaps_result",
@@ -50,6 +50,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from . import CoGAPS
     from .params import CogapsParams
+    from .utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     params = CogapsParams(
         n_patterns=args.n_patterns,

@@ -27,6 +27,7 @@ from .models import dense
 from .params import CogapsParams
 from .result import CogapsResult, finalize_statistics, mean_chi_sq
 from .utils import checkpoint as ckpt
+from .utils.compile_cache import configure_compile_cache
 from .utils.logging import log_worker, log_message
 
 
@@ -116,6 +117,7 @@ def CoGAPS(
     **kwargs,
 ) -> CogapsResult:
     """Run CoGAPS (reference: R/CoGAPS.R:90-171)."""
+    configure_compile_cache()
     params = dataclasses.replace(params) if params is not None else CogapsParams()
     if n_patterns is not None:
         params.n_patterns = int(n_patterns)
@@ -174,15 +176,6 @@ def _run_single(D: np.ndarray, params: CogapsParams, uncertainty,
     if params.sparse_optimization or is_coo:
         from .sparse_engine import SparseGapsEngine
         engine = SparseGapsEngine(D, config)
-        import jax as _jax
-        if (_jax.default_backend() not in ("cpu",)
-                and engine.config.sparse_table_mode == "xla"
-                and params.print_messages):
-            log_message(
-                "Note: data exceeds the fused sparse kernel's VMEM "
-                "bounds; running through the XLA sweep (use "
-                "parallel.atlas_engine.run_atlas — the HBM-DMA atlas "
-                "kernel — for data this large)")
     else:
         engine = GapsEngine(D, uncertainty, config)
 

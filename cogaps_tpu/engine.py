@@ -1,6 +1,6 @@
 """Algorithm driver: the two-phase annealed Gibbs run.
 
-TPU-native equivalent of the reference's GapsRunner + GapsStatistics
+JAX equivalent of the reference's GapsRunner + GapsStatistics
 (reference: src/GapsRunner.cpp:273-503, src/GapsStatistics.{h,cpp}):
 
 * two phases (equilibration with annealing temp min(1, 2*iter/N), then
@@ -19,8 +19,8 @@ TPU-native equivalent of the reference's GapsRunner + GapsStatistics
   PUMP counting (GapsStatistics.h:65-126), fixed-matrix mode
   (GapsRunner.cpp:330-350).
 
-The whole phase (all iterations, all sweeps) runs as ONE jitted
-lax.fori_loop — no per-iteration dispatch. The iteration body is a pure
+Each dispatch span of a phase (all its iterations, all sweeps) runs as
+ONE jitted lax.fori_loop — no per-iteration dispatch. The iteration body is a pure
 module-level function over an explicit `DeviceData`, so the same code path
 serves the single-chip engine, vmapped multi-chain runs, and shard_map
 sharded runs (parallel/).
@@ -28,38 +28,21 @@ sharded runs (parallel/).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from .models import dense
 from .ops import rng as gaps_rng
 from .ops.atoms import AtomTable, init_atoms
 from .ops.sweep import MassParams, SamplerConsts, make_consts, run_updates
 from .params import EngineConfig
+from .utils.pytree import pytree_dataclass
 
 EQUILIBRATION = 0
 SAMPLING = 1
-
-
-def _pallas_batch(batch: int, cfg: EngineConfig) -> int:
-    """Kernel lane width: the configured batch clamped to
-    pallas_max_batch and rounded up to a 128-lane multiple (Mosaic's
-    concat/relayout lowering needs full-vreg lane groups)."""
-    b = min(batch, cfg.pallas_max_batch)
-    return max(128, -(-b // 128) * 128)
-
-
-def _resolve_use_pallas(cfg: EngineConfig) -> bool:
-    """Auto: the fused Pallas sweep kernel on TPU-class backends, the
-    XLA sweep elsewhere (the kernel's differential oracle)."""
-    if cfg.use_pallas is not None:
-        return bool(cfg.use_pallas)
-    return jax.default_backend() not in ("cpu",)
 
 _LO_BITS = 30
 _LO_MASK = (1 << _LO_BITS) - 1
@@ -86,7 +69,7 @@ class HistConfig(NamedTuple):
     snap_freq: int
 
 
-@struct.dataclass
+@pytree_dataclass
 class ChainState:
     atoms_a: AtomTable
     atoms_p: AtomTable
@@ -94,7 +77,7 @@ class ChainState:
     M_p: jnp.ndarray  # (nSamples, k)
 
 
-@struct.dataclass
+@pytree_dataclass
 class RunStats:
     a_sum: jnp.ndarray  # (G, k)
     a_sumsq: jnp.ndarray
@@ -163,32 +146,7 @@ def run_iteration(cfg: EngineConfig, consts_a: SamplerConsts,
     # Y caches are rebuilt exactly at each sampler's update-call start
     # (the analog of sync + extraInitialization, GapsRunner.cpp:202-222);
     # the full residual is never carried across iterations.
-    use_pallas = _resolve_use_pallas(cfg)
-
-    def run_upd(k, atoms, M, cache, n_upd, consts, mparams, D, invS2,
-                other):
-        if use_pallas and consts.axis_name is None:
-            # single chain = NCH=1 of the fused multi path (same kernel,
-            # same in-kernel PRNG fast mode)
-            from .models.dense import DenseCache
-            from .ops.pallas_sweep import run_updates_pallas_multi
-            ck = consts._replace(batch=_pallas_batch(consts.batch, cfg))
-            atoms_b = AtomTable(mass=atoms.mass[None],
-                                elem=atoms.elem[None], n=atoms.n[None])
-            mp_b = MassParams(lam=mparams.lam.reshape(1),
-                              max_gibbs_mass=mparams.max_gibbs_mass
-                              .reshape(1))
-            a2, M2, c2, done, ns, cnt = run_updates_pallas_multi(
-                k[None], atoms_b, M[None], DenseCache(Y=cache.Y[None]),
-                temp, n_upd.reshape(1), ck, mp_b, invS2=invS2[None],
-                other_M=other[None], s_max=cfg.s_max,
-                interpret=jax.default_backend() == "cpu")
-            from .ops.sweep import SweepCounts
-            return (AtomTable(mass=a2.mass[0], elem=a2.elem[0],
-                              n=a2.n[0]), M2[0], DenseCache(Y=c2.Y[0]),
-                    done[0], ns[0],
-                    SweepCounts(processed=cnt.processed[0],
-                                accepted=cnt.accepted[0]))
+    def run_upd(k, atoms, M, cache, n_upd, consts, mparams, invS2, other):
         phase_t = dense.make_phase(invS2, other,
                                    axis_name=consts.axis_name)
         model = dense.make_model(phase_t, invS2,
@@ -201,14 +159,14 @@ def run_iteration(cfg: EngineConfig, consts_a: SamplerConsts,
                                       axis_name=consts_a.axis_name)
         atoms_a, M_a, cache_a, done_a, ns_a, cnt_a = run_upd(
             kua, atoms_a, M_a, cache_a, n_a, consts_a, data.mass_a,
-            data.D, data.invS2, M_p)
+            data.invS2, M_p)
         obs_a = (ns_a, cnt_a)
     if fixed != "P":
         cache_p = dense.rebuild_cache(data.D_t, data.invS2_t, M_p, M_a,
                                       axis_name=consts_p.axis_name)
         atoms_p, M_p, cache_p, done_p, ns_p, cnt_p = run_upd(
             kup, atoms_p, M_p, cache_p, n_p, consts_p, data.mass_p,
-            data.D_t, data.invS2_t, M_a)
+            data.invS2_t, M_a)
         obs_p = (ns_p, cnt_p)
 
     state = ChainState(atoms_a=atoms_a, atoms_p=atoms_p,
@@ -224,6 +182,7 @@ def run_iteration(cfg: EngineConfig, consts_a: SamplerConsts,
     return state, stats
 
 
+@jax.named_scope("stats")
 def accumulate_stats(cfg: EngineConfig, hist: HistConfig, phase: int, it,
                      M_a, M_p, n_atoms_a, n_atoms_p, done_a, done_p,
                      stats: RunStats, chisq_fn, n_genes: int,
@@ -343,8 +302,9 @@ _jit_phase_span = jax.jit(run_phase_span, static_argnums=(0, 1, 2, 3, 4))
 
 def dispatch_spans(start: int, stop: int, span: int):
     """Host-side span schedule: one XLA program per <=span iterations.
-    Long single programs (the whole phase) trip the TPU device watchdog;
-    spans dispatch asynchronously so chunking adds no host-sync stalls."""
+    Progress callbacks and checkpoint chunking act between spans; spans
+    dispatch asynchronously, so chunking adds no host-sync stalls unless
+    a callback reads device state."""
     if span <= 0:
         yield (start, stop)
         return
@@ -464,8 +424,6 @@ class GapsEngine:
         self.data_sparsity = float((D == 0).mean())
         self.hist = derive_hist(config)
 
-
-
     # convenience accessors used by checkpointing / tests
     @property
     def D(self):
@@ -510,89 +468,3 @@ class GapsEngine:
     def chisq(self, state: ChainState) -> float:
         return float(dense.chisq_from_state(self.data.D, self.invS2,
                                             state.M_a, state.M_p))
-
-
-# ----------------------------------------------------------------------
-# batched iteration (multi-chain Pallas path)
-# ----------------------------------------------------------------------
-def run_iteration_batch(cfg: EngineConfig, consts_a: SamplerConsts,
-                        consts_p: SamplerConsts, hist: HistConfig,
-                        phase: int, data: DeviceData, it,
-                        state: ChainState, stats: RunStats, base_keys
-                        ) -> Tuple[ChainState, RunStats]:
-    """run_iteration over a leading chain axis, dispatching both
-    samplers' update calls as ONE multi-chain Pallas kernel each
-    (ops/pallas_sweep.run_updates_pallas_multi) — the chains' sweeps are
-    interleaved inside the kernel to hide per-op latency. Everything
-    else (Poisson counts, cache rebuilds, statistics) is vmapped XLA."""
-    from .ops.pallas_sweep import run_updates_pallas_multi
-    fixed = cfg.which_matrix_fixed
-    NCH = state.M_a.shape[0]
-    n_genes = data.D.shape[1]
-
-    key_it = jax.vmap(lambda k: jax.random.fold_in(
-        jax.random.fold_in(k, phase), it))(base_keys)
-    ks = jax.vmap(lambda k: jax.random.split(k, 4))(key_it)
-    kpa, kpp, kua, kup = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
-
-    if phase == EQUILIBRATION:
-        temp = jnp.minimum(
-            1.0, (2.0 * it.astype(jnp.float32)) / cfg.n_iterations)
-    else:
-        temp = jnp.float32(1.0)
-
-    n_a = jax.vmap(lambda k, n: gaps_rng.poisson_fast(
-        k, jnp.maximum(n, 10).astype(jnp.float32)))(kpa, state.atoms_a.n)
-    n_p = jax.vmap(lambda k, n: gaps_rng.poisson_fast(
-        k, jnp.maximum(n, 10).astype(jnp.float32)))(kpp, state.atoms_p.n)
-
-    atoms_a, M_a = state.atoms_a, state.M_a
-    atoms_p, M_p = state.atoms_p, state.M_p
-    done_a = jnp.zeros((NCH,), jnp.int32)
-    done_p = jnp.zeros((NCH,), jnp.int32)
-    obs_a = obs_p = None
-
-    ck_a = consts_a._replace(batch=_pallas_batch(consts_a.batch, cfg))
-    ck_p = consts_p._replace(batch=_pallas_batch(consts_p.batch, cfg))
-    interp = jax.default_backend() == "cpu"
-
-    if fixed != "A":
-        cache_a = jax.vmap(dense.rebuild_cache)(data.D, data.invS2,
-                                                M_a, M_p)
-        atoms_a, M_a, _, done_a, ns_a, cnt_a = run_updates_pallas_multi(
-            kua, atoms_a, M_a, cache_a, temp, n_a, ck_a, data.mass_a,
-            invS2=data.invS2, other_M=M_p, s_max=cfg.s_max,
-            interpret=interp)
-        obs_a = (ns_a, cnt_a)
-    if fixed != "P":
-        cache_p = jax.vmap(dense.rebuild_cache)(data.D_t, data.invS2_t,
-                                                M_p, M_a)
-        atoms_p, M_p, _, done_p, ns_p, cnt_p = run_updates_pallas_multi(
-            kup, atoms_p, M_p, cache_p, temp, n_p, ck_p, data.mass_p,
-            invS2=data.invS2_t, other_M=M_a, s_max=cfg.s_max,
-            interpret=interp)
-        obs_p = (ns_p, cnt_p)
-
-    state = ChainState(atoms_a=atoms_a, atoms_p=atoms_p,
-                       M_a=M_a, M_p=M_p)
-
-    from .ops.sweep import SweepCounts
-    zobs = (jnp.zeros((NCH,), jnp.int32),
-            SweepCounts(processed=jnp.zeros((NCH, 4), jnp.int32),
-                        accepted=jnp.zeros((NCH, 4), jnp.int32)))
-    obs_a = obs_a if obs_a is not None else zobs
-    obs_p = obs_p if obs_p is not None else zobs
-
-    def one_stats(M_a1, M_p1, na1, np1, da1, dp1, stats1, D1, invS21,
-                  obs_a1, obs_p1):
-        def chisq_fn():
-            return dense.chisq_from_state(D1, invS21, M_a1, M_p1)
-        return accumulate_stats(cfg, hist, phase, it, M_a1, M_p1, na1,
-                                np1, da1, dp1, stats1, chisq_fn,
-                                n_genes, None, obs_a=obs_a1,
-                                obs_p=obs_p1)
-
-    stats = jax.vmap(one_stats)(
-        M_a, M_p, state.atoms_a.n, state.atoms_p.n, done_a, done_p,
-        stats, data.D, data.invS2, obs_a, obs_p)
-    return state, stats

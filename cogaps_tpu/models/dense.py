@@ -1,4 +1,4 @@
-"""Dense normal data model — TPU formulation.
+"""Dense normal data model — batched formulation.
 
 Capability parity with the reference's DenseNormalModel
 (reference: src/gibbs_sampler/DenseNormalModel.{h,cpp}), re-derived for
@@ -10,7 +10,7 @@ full data row (DenseNormalModel.cpp:162-183):
     s    = sum_i other[i,c]^2             / S[r,i]^2
     s_mu = sum_i other[i,c]*(D - AP)[r,i] / S[r,i]^2
 
-TPU re-derivation: within one batched sweep every proposal is evaluated
+Batched re-derivation: within one batched sweep every proposal is evaluated
 at the batch-start state (row-disjoint proposals commute — see
 ops/sweep.py), and the partner factor is frozen for a whole update phase
 (samplers alternate, reference: GapsRunner.cpp:202-222). All reductions
@@ -37,14 +37,19 @@ D - A P^T, the analog of extraInitialization, cpp:38-54).
 
 This reformulation makes every per-proposal quantity a flat (B,) gather
 from a table of size n_bins (SQ, Y) or n_bins*k (Z) — there are no
-O(batch x data_dim) operations anywhere in the sweep. Round-3 profiling
-motivated it: per-proposal row gathers of the (n_rows, m) residual
-dominated the sweep on the v5e.
+O(batch x data_dim) operations anywhere in the sweep: a per-proposal
+row gather of the (n_rows, m) residual would move m floats per proposal
+instead of one.
 
 The uncertainty default is S = max(0.1*D, 0.1)
 (reference: DenseNormalModel.h:73, MatrixMath.cpp:74-82); we precompute
 invS2 = 1/S^2 once. lambda = alpha * sqrt(k / mean_nonzero(D)) and
 maxGibbsMass scales by 1/lambda (reference: DenseNormalModel.h:79-81).
+
+Every matrix product here passes precision=HIGHEST: a float32 product
+without it may run in TF32 on GPUs, which keeps about three decimal
+digits and would perturb every acceptance test. The products are
+(n_rows x m) by (m x k) with k <= 50, so full precision costs little.
 """
 
 from __future__ import annotations
@@ -54,10 +59,13 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..utils.pytree import pytree_dataclass
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
-@struct.dataclass
+@pytree_dataclass
 class DenseCache:
     """Mutable model state during one sampler's update call: the
     conditional-mean table Y = R @ other, maintained incrementally (the
@@ -105,6 +113,7 @@ def compute_lambda(D: np.ndarray, alpha: float, n_patterns: int) -> float:
     return float(alpha) * float(np.sqrt(n_patterns / mean_nz))
 
 
+@jax.named_scope("rebuild")
 def make_phase(invS2: jnp.ndarray, other_M: jnp.ndarray,
                axis_name=None) -> DensePhase:
     """`axis_name` handles gene-sharded runs (parallel/sharded.py): the
@@ -113,11 +122,12 @@ def make_phase(invS2: jnp.ndarray, other_M: jnp.ndarray,
     mesh axis."""
     k = other_M.shape[1]
     sq = jnp.dot(invS2, other_M * other_M,
-                 preferred_element_type=jnp.float32)
+                 preferred_element_type=jnp.float32, precision=HIGHEST)
     # outer products o_c * o_c' as an (m, k*k) matrix -> Z (n_rows, k, k)
     oo = (other_M[:, :, None] * other_M[:, None, :]).reshape(
         other_M.shape[0], k * k)
-    z = jnp.dot(invS2, oo, preferred_element_type=jnp.float32)
+    z = jnp.dot(invS2, oo, preferred_element_type=jnp.float32,
+                precision=HIGHEST)
     col_max = jnp.max(other_M, axis=0)
     if axis_name is not None:
         sq = jax.lax.psum(sq, axis_name)
@@ -135,17 +145,20 @@ def residual(D: jnp.ndarray, invS2: jnp.ndarray, M: jnp.ndarray,
     """Exact weighted residual R = (D - M other^T) * invS2 — the analog
     of extraInitialization's full AP rebuild (DenseNormalModel.cpp:38-54).
     Only materialized between update phases."""
-    ap = jnp.dot(M, other_M.T, preferred_element_type=jnp.float32)
+    ap = jnp.dot(M, other_M.T, preferred_element_type=jnp.float32,
+                 precision=HIGHEST)
     return (D - ap) * invS2
 
 
+@jax.named_scope("rebuild")
 def rebuild_cache(D: jnp.ndarray, invS2: jnp.ndarray, M: jnp.ndarray,
                   other_M: jnp.ndarray, axis_name=None) -> DenseCache:
     """Y = R @ other at the current state (start of an update call).
     With `axis_name`, the reduction dimension (the partner rows) is
     device-sharded and the partial Y tables are psum'd."""
     R = residual(D, invS2, M, other_M)
-    Y = jnp.dot(R, other_M, preferred_element_type=jnp.float32)
+    Y = jnp.dot(R, other_M, preferred_element_type=jnp.float32,
+                precision=HIGHEST)
     if axis_name is not None:
         Y = jax.lax.psum(Y, axis_name)
     return DenseCache(Y=Y)
@@ -185,12 +198,20 @@ def apply_updates(cache: DenseCache, phase: DensePhase, invS2: jnp.ndarray,
     DenseNormalModel.cpp:243-258). `upd.deltas` are the *actual*
     (clamp-adjusted) deltas, matching safelyChangeMatrix (cpp:117-123);
     non-applied lanes carry delta exactly 0, so their scatter-adds are
-    no-ops."""
+    no-ops.
+
+    The primary and second elements go in two scatters, in that order: a
+    same-row move/exchange lane updates one row twice, and within one
+    scatter a GPU applies duplicate indices with atomics in no fixed
+    order. Split, each scatter adds at most one nonzero row per index,
+    so the result is the same on every run and backend."""
     del invS2
     k = phase.SQ.shape[1]
     zrows = phase.Z[upd.rows * k + upd.cols]  # (2B, k)
-    return DenseCache(
-        Y=cache.Y.at[upd.rows].add(-upd.deltas[:, None] * zrows))
+    dz = -upd.deltas[:, None] * zrows
+    B = upd.rows.shape[0] // 2
+    Y = cache.Y.at[upd.rows[:B]].add(dz[:B])
+    return DenseCache(Y=Y.at[upd.rows[B:]].add(dz[B:]))
 
 
 class DenseModel(NamedTuple):

@@ -1,4 +1,4 @@
-"""Sparse normal data model — TPU formulation.
+"""Sparse normal data model — batched formulation.
 
 Capability parity with the reference's SparseNormalModel
 (reference: src/gibbs_sampler/SparseNormalModel.{h,cpp}), re-derived for
@@ -20,10 +20,10 @@ plus corrections over the nonzeros of the data row only:
                     + sum_nnz ( v/d + (v - (v/d)/d) * (M[r] . other[j]) ) )
 
 where v = other[j, c] and d the nonzero data value. The reference iterates
-nonzeros with 64-bit popcount bitmask intersection (cpp:12-15); on TPU the
+nonzeros with 64-bit popcount bitmask intersection (cpp:12-15); here the
 nonzeros live in a padded ELL layout (row -> fixed-width index/value
-arrays) so a proposal batch becomes (B, L, k) gathers + VPU reductions,
-with the (B, L) reconstruction dots as one batched einsum on the MXU.
+arrays) so a proposal batch becomes (B, L, k) gathers + elementwise
+reductions, with the (B, L) reconstruction dots as one batched einsum.
 
 The withChange identity s_mu(ch) = s_mu - ch*s holds exactly (the
 reference's extra terms telescope: Z2[c,c] - sum_nnz(v^2 - (v/d)^2) =
@@ -37,6 +37,10 @@ with the all-elements term collapsing to a k x k Frobenius product.
 The model keeps NO residual/AP cache — apply() is the identity; M itself
 is the only mutable state (matching the reference, which recomputes the
 reconstruction per nonzero from the live factors).
+
+Every matrix product here passes precision=HIGHEST: a float32 product
+without it may run in TF32 on GPUs, which keeps about three decimal
+digits and would perturb every acceptance test.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import numpy as np
 from .dense import AlphaBatch
 
 BETA = 100.0  # 1/0.1^2 (reference: SparseNormalModel.h:77)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 # fp32 noise floor per unit of absolute-value accumulation: ~2^-24 per
 # rounding, with headroom for the reduction length. |s_mu| below
@@ -105,8 +110,10 @@ class SparsePhase(NamedTuple):
     col_nz: jnp.ndarray  # (k,) bool
 
 
+@jax.named_scope("rebuild")
 def make_sparse_phase(other_M: jnp.ndarray) -> SparsePhase:
-    z2 = jnp.dot(other_M.T, other_M, preferred_element_type=jnp.float32)
+    z2 = jnp.dot(other_M.T, other_M, preferred_element_type=jnp.float32,
+                 precision=HIGHEST)
     return SparsePhase(Z1=jnp.diagonal(z2), Z2=z2, other=other_M,
                        col_nz=jnp.max(other_M, axis=0) > 0.0)
 
@@ -130,7 +137,7 @@ def _row_terms(ell: EllMatrix, phase: SparsePhase, M: jnp.ndarray, r, c):
     o_rows = phase.other[jnp.maximum(gi, 0)]  # (B, L, k)
     Mr = M[r]  # (B, k)
     ap = jnp.einsum("blk,bk->bl", o_rows, Mr,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=jnp.float32, precision=HIGHEST)
     v = jnp.take_along_axis(o_rows, c[:, None, None], axis=2)[..., 0]  # (B,L)
     d_safe = jnp.where(mask, d, 1.0)
     t1 = v / d_safe
@@ -206,131 +213,22 @@ def make_model(ell: EllMatrix, phase: SparsePhase) -> SparseModel:
                        alpha=alpha, apply=apply)
 
 
-# ----------------------------------------------------------------------
-# TPU fast path: SQ/Y/G tables that make the DENSE sweep kernel evaluate
-# the sparse closed forms exactly. The per-proposal sparse quantities are
-# quadratic in the factor row M[r], so they reduce to the row "Gram"
-# table of the implied uncertainty (S = 0.1 on zeros, 0.1*d on nonzeros):
-#
-#   G[r, c, c'] = beta * ( Z2[c, c'] - sum_nz v_c v_c' (1 - 1/d^2) )
-#   s(r, c)     = G[r, c, c]
-#   s_mu(r, c)  = beta * sum_nz v_c/d  -  sum_c' M[r, c'] G[r, c, c']
-#
-# G plays exactly the dense model's Z role: an accepted change
-# (r, c0, delta) shifts s_mu(r, c) by -delta * G[r, c, c0], which is the
-# kernel's incremental Y-update rule — so the fused kernel
-# (ops/pallas_sweep.py) runs the sparse model unchanged, in ztable mode
-# with G as the pair-term table (reference closed forms:
-# SparseNormalModel.cpp:153-292).
-# ----------------------------------------------------------------------
-def dense_weights(ell: EllMatrix, n_cols: int):
-    """Static per-engine dense weight matrices for the table builder:
-    Wd[r, i] = 1 - 1/d^2 at nonzeros (0 elsewhere), D1[r, i] = 1/d.
-    Dense (n_rows x n_cols) — the fast path's memory bound; callers
-    gate on size and fall back to the XLA sweep beyond it."""
-    idx = np.asarray(ell.idx)
-    val = np.asarray(ell.val)
-    NR, L = idx.shape
-    Wd = np.zeros((NR, n_cols), np.float32)
-    D1 = np.zeros((NR, n_cols), np.float32)
-    rows = np.repeat(np.arange(NR), L)
-    cols = idx.reshape(-1)
-    vals = val.reshape(-1)
-    keep = cols >= 0
-    rows, cols, vals = rows[keep], cols[keep], vals[keep]
-    Wd[rows, cols] = 1.0 - 1.0 / (vals * vals)
-    D1[rows, cols] = 1.0 / vals
-    return jnp.asarray(Wd), jnp.asarray(D1)
-
-
-def kernel_tables(Wd: jnp.ndarray, D1: jnp.ndarray, other: jnp.ndarray,
-                  M: jnp.ndarray):
-    """Build (SQ, Y0, G_flat) for one update call (other = frozen
-    partner factor, M = the sampled factor at call start)."""
-    NR = Wd.shape[0]
-    k = other.shape[1]
-    prec = jax.lax.Precision.HIGHEST
-    oo = (other[:, :, None] * other[:, None, :]).reshape(
-        other.shape[0], k * k)
-    U = jnp.dot(Wd, oo, preferred_element_type=jnp.float32,
-                precision=prec).reshape(NR, k, k)
-    Z2 = jnp.dot(other.T, other, preferred_element_type=jnp.float32,
-                 precision=prec)
-    G = BETA * (Z2[None] - U)  # (NR, k, k)
-    SQ = jnp.diagonal(G, axis1=1, axis2=2)  # (NR, k)
-    T4 = jnp.dot(D1, other, preferred_element_type=jnp.float32,
-                 precision=prec)
-    # broadcast-mul instead of einsum: XLA lowers small batched
-    # einsums through gathers on this backend (PERF_NOTES.md)
-    Y0 = BETA * T4 - jnp.sum(M[:, None, :] * G, axis=2)
-    return SQ, Y0, G.reshape(NR * k, k)
-
-
-def kernel_tables_ell(ell: EllMatrix, other: jnp.ndarray,
-                      M: jnp.ndarray, row_chunk: int = 4096):
-    """ELL-native build of (SQ, Y0, G_flat) — the same tables as
-    kernel_tables WITHOUT materializing dense (NR x m) weights
-    (VERDICT r4 #5; the reference's sparse model exists precisely to
-    avoid dense storage, src/gibbs_sampler/SparseNormalModel.h:16):
-
-        U[r] = sum_nz w * oo[idx[r, l]],  w = 1 - 1/d^2
-        G[r] = beta * (Z2 - U[r]);  T4[r] = sum_nz (1/d) * other[idx]
-
-    The nonzero gathers run in row chunks under lax.map so the
-    transient (chunk, L, k^2) stays bounded. Feasible whenever the G
-    table (NR * k^2) itself fits device memory — small k (scCoGAPS);
-    the atlas k=50 configuration stays on the sharded XLA path."""
-    NR, L = ell.idx.shape
-    m, k = other.shape
-    prec = jax.lax.Precision.HIGHEST
-    oo = (other[:, :, None] * other[:, None, :]).reshape(m, k * k)
-    Z2 = jnp.dot(other.T, other, preferred_element_type=jnp.float32,
-                 precision=prec)
-    NRp = -(-NR // row_chunk) * row_chunk
-    idx_p = jnp.pad(ell.idx, ((0, NRp - NR), (0, 0)),
-                    constant_values=-1)
-    val_p = jnp.pad(ell.val, ((0, NRp - NR), (0, 0)))
-
-    def chunk(args):
-        idx_c, val_c = args  # (row_chunk, L)
-        mask = idx_c >= 0
-        d = jnp.where(mask, val_c, 1.0)
-        w = jnp.where(mask, 1.0 - 1.0 / (d * d), 0.0)
-        dr = jnp.where(mask, 1.0 / d, 0.0)
-        gi = jnp.maximum(idx_c, 0)
-        oo_rows = oo[gi]  # (row_chunk, L, k^2)
-        U = jnp.einsum("rl,rlq->rq", w, oo_rows,
-                       preferred_element_type=jnp.float32)
-        o_rows = other[gi]  # (row_chunk, L, k)
-        T4 = jnp.einsum("rl,rlk->rk", dr, o_rows,
-                        preferred_element_type=jnp.float32)
-        return U, T4
-
-    U, T4 = jax.lax.map(
-        chunk, (idx_p.reshape(-1, row_chunk, L),
-                val_p.reshape(-1, row_chunk, L)))
-    U = U.reshape(NRp, k * k)[:NR].reshape(NR, k, k)
-    T4 = T4.reshape(NRp, k)[:NR]
-    G = BETA * (Z2[None] - U)
-    SQ = jnp.diagonal(G, axis1=1, axis2=2)
-    Y0 = BETA * T4 - jnp.sum(M[:, None, :] * G, axis=2)
-    return SQ, Y0, G.reshape(NR * k, k)
-
-
 def sparse_chisq(ell_a: EllMatrix, M_a: jnp.ndarray, M_p: jnp.ndarray
                  ) -> jnp.ndarray:
     """Closed-form chi^2 (reference: SparseNormalModel.cpp:39-60), regrouped
     for fp32 stability into two nonnegative parts:
         chi^2/beta = [<Z2a, Z2p> - sum_nnz dot^2]_+  +  sum_nnz (1 - dot/d)^2
     (the bracket is sum over zero elements of dot^2, so clamping is exact)."""
-    z2a = jnp.dot(M_a.T, M_a, preferred_element_type=jnp.float32)
-    z2p = jnp.dot(M_p.T, M_p, preferred_element_type=jnp.float32)
+    z2a = jnp.dot(M_a.T, M_a, preferred_element_type=jnp.float32,
+                  precision=HIGHEST)
+    z2p = jnp.dot(M_p.T, M_p, preferred_element_type=jnp.float32,
+                  precision=HIGHEST)
     all_term = jnp.sum(z2a * z2p)
 
     mask = ell_a.idx >= 0
     o = M_p[jnp.maximum(ell_a.idx, 0)]  # (G, L, k)
     dot = jnp.einsum("glk,gk->gl", o, M_a,
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32, precision=HIGHEST)
     d = jnp.where(mask, ell_a.val, 1.0)
     zero_part = all_term - jnp.sum(jnp.where(mask, dot * dot, 0.0))
     nnz_part = jnp.sum(jnp.where(mask, (1.0 - dot / d) ** 2, 0.0))

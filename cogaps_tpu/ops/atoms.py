@@ -1,4 +1,4 @@
-"""TPU-resident atomic domain.
+"""Device-resident atomic domain.
 
 The reference stores atoms of the 2^64-position 1-D domain in a sorted
 map + unsorted vector with cached neighbor pointers
@@ -19,20 +19,18 @@ vector for the same O(1) uniform pick, AtomicDomain.cpp:24-29). The sweep
 maintains compactness with O(batch) work per sweep: births append at the
 top, and each killed slot below the new live boundary is refilled from
 the tail — the vectorized analog of the reference's swap-with-back erase
-(AtomicDomain.cpp:80-111). Round 1 used a hole-based table with
-O(capacity) rank searches instead; the round-3 profile showed the
-searchsorted binary searches lowering to serialized while-loops on this
-backend (~8 ms/sweep at capacity 32k), which the compact layout removes
-entirely.
+(AtomicDomain.cpp:80-111). A hole-based table would need an
+O(capacity) rank search per pick instead; the compact layout needs none.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class AtomTable:
     """Fixed-capacity atom storage with holes (live iff elem >= 0)."""
 

@@ -1,19 +1,11 @@
-"""Gather/scatter-free one-hot/triangular-matmul primitives.
+"""Gather/scatter-free one-hot/triangular-matmul primitives, plain jnp.
 
-Round 2 built the whole sweep on these after measuring dynamic gathers
-at ~85us; round 3 found that cost is context-dependent (serialized
-custom-call lowering inside large programs, ~2us in small ones) and
-moved the hot path first to native gather/scatter (ops/sweep.py, the
-CPU/reference implementation) and then into a fused Pallas kernel that
-re-uses this module's formulation INSIDE VMEM (ops/pallas_sweep.py).
-
-What remains here serves two purposes: (a) small fixed-shape bookkeeping
-in the XLA engine (write_at for history/snapshot slots — a compare-select
-with no scatter); (b) the reference implementations against which
-tests/test_sweep_equivalence.py differentially validates every one-hot
-formulation the Pallas kernel relies on (exact integer transport through
-fp32 matmuls at HIGHEST precision, two-level rank selection, prefix-sum
-tiling).
+The engines use one of them: write_at, the compare-select that records
+history and snapshot slots without a scatter. The others (exact integer
+transport through fp32 matmuls at HIGHEST precision, two-level rank
+selection, prefix-sum tiling) are alternative formulations of sweep
+bookkeeping, checked against ops/sweep.py's native gathers and scatters
+by tests/test_sweep_equivalence.py; no engine path calls them.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference uses a two-level scheme — a global Xoroshiro128+ seeder that
 hands per-proposal PCG streams (reference: src/math/Random.cpp:32-56,
 264-305) — because OpenMP threads must draw reproducibly regardless of
-thread count. On TPU we get the same guarantee for free from JAX's
+thread count. Here the same guarantee comes for free from JAX's
 counter-based threefry PRNG: keys are derived by ``fold_in`` from
 (seed, phase, iteration, sweep), so results are bit-identical for any
 device count or sweep schedule.
@@ -87,8 +87,8 @@ def poisson_fast(key, lam):
     293-296) on the engine fast paths: the budget sets how much work an
     iteration does, not the chain's stationary distribution (any
     positive budget sequence leaves the sampler exact), and
-    jax.random.poisson's rejection loop costs ~0.1 ms per draw on this
-    backend — a measurable share of a ~2 ms iteration. The sharded
+    jax.random.poisson is a data-dependent rejection loop, where this
+    is a fixed handful of elementwise ops. The sharded
     engine keeps the exact draw (its determinism contract pins
     trajectories)."""
     z = jax.random.normal(key, jnp.shape(lam))
@@ -110,8 +110,7 @@ def trunc_gamma2_y(u, b):
     inverts a 5001-entry qgamma lookup table instead,
     src/math/Random.cpp:194-200; same distribution, better resolution).
     Used by the same-bin exchange mass redistribution
-    (ProposalQueue.cpp:267-277). Pure elementwise f32 — the Pallas
-    kernel runs this identical code in-kernel."""
+    (ProposalQueue.cpp:267-277). Pure elementwise f32."""
     b = jnp.maximum(b, jnp.float32(1e-6))
     upper = 1.0 - jnp.exp(-b) * (1.0 + b)
     q = jnp.clip(u * upper, 1e-12, None)

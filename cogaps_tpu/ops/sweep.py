@@ -1,6 +1,6 @@
 """Vectorized conflict-free Gibbs proposal sweep.
 
-This is the TPU replacement for the reference's two execution engines:
+This is the batched replacement for the reference's two execution engines:
 the sequential proposal loop (reference:
 src/gibbs_sampler/SingleThreadedGibbsSampler.h:114-257) and the
 ProposalQueue + OpenMP parallel-for machinery
@@ -21,15 +21,13 @@ queue — which admits whole batches under a single atom-count window
 (ProposalQueue.cpp:135-158) — all proposals within a batch use the
 batch-start atom count for the birth/death decision.
 
-Execution strategy: this module is the portable XLA implementation —
-the Pallas kernel's differential oracle (tests/test_pallas_sweep.py) and
-the execution path on CPU and in sharded (collective-using) runs. On the
-v5e, TPU runs use the fused Pallas kernel instead (ops/pallas_sweep.py):
-dynamic gathers/scatters inside large XLA programs lower to serialized
-custom-calls at ~100-170us each on that backend (PERF_NOTES.md), so the
-kernel keeps every table VMEM-resident.
+Execution strategy: this module is the one portable implementation. XLA
+compiles the same code for the GPU and the CPU, for single chains, for
+vmapped chains and for gene-sharded (collective-using) runs; the
+proposal tables are read with native gathers and written with native
+scatters.
 
-Conflict resolution (_keep, mirrored exactly by the kernel): exact
+Conflict resolution (_keep): exact
 first-wins on rows AND atoms (earliest active lane per row/slot wins;
 ops/sweep.atoms_first_wins documents why first-wins everywhere). The
 rule is deterministic, keeps only mutually non-conflicting proposals,
@@ -65,7 +63,7 @@ element level:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -96,7 +94,7 @@ class SamplerConsts(NamedTuple):
     # (target = e1 +/- U[1, W], W = mean atom spacing in bins — the
     # analog of the reference's neighbor-bounded move interval,
     # SingleThreadedGibbsSampler.h:192-223, needed for mixing in
-    # sharp-posterior regimes, PERF_NOTES.md); False = global uniform
+    # sharp-posterior regimes); False = global uniform
     # (also a valid symmetric proposal; mixes slowly when the
     # posterior over positions is sharp)
     local_moves: bool = True
@@ -131,6 +129,21 @@ class ApplyBatch(NamedTuple):
     rows: jnp.ndarray  # (2B,) int32
     cols: jnp.ndarray  # (2B,) int32
     deltas: jnp.ndarray  # (2B,) float32 (0 where not applied)
+
+
+class LaneStats(NamedTuple):
+    """Per-lane decisions of one sweep, for comparing two backends
+    decision by decision (`sweep(..., lanes=True)`). A lane passes iff
+    `stat > threshold` (birth, exchange: the new mass against epsilon)
+    or `threshold < stat` (death, move: log U against the
+    log-likelihood change), together with the lane's validity
+    conditions. A death lane that passes re-births its atom; one that
+    fails kills it."""
+
+    kind: jnp.ndarray  # (B,) int32 proposal type, -1 where not kept
+    passed: jnp.ndarray  # (B,) bool
+    stat: jnp.ndarray  # (B,) float32
+    threshold: jnp.ndarray  # (B,) float32
 
 
 class SweepCounts(NamedTuple):
@@ -171,12 +184,10 @@ def death_prob(n_f32: jnp.ndarray, consts: SamplerConsts) -> jnp.ndarray:
 
 
 def atoms_first_wins(consts: SamplerConsts) -> bool:
-    """Static rule shared by the XLA sweep and the Pallas kernel: exact
-    first-wins on atoms, always. The kernel's match-matrix conflict
-    test makes first-wins exactly as cheap as the uncontested-only
-    rule, and first-wins keeps ~3x more survivors per sweep when atoms
-    are heavily contended (the P sampler: B lanes picking among ~10^2
-    atoms left almost every atom multiply-claimed, which the
+    """Static rule: exact first-wins on atoms, always. First-wins keeps
+    ~3x more survivors per sweep than the uncontested-only rule when
+    atoms are heavily contended (the P sampler: B lanes picking among
+    ~10^2 atoms left almost every atom multiply-claimed, which the
     uncontested rule resolved by keeping NONE of the claimants)."""
     return True
 
@@ -191,8 +202,7 @@ def _keep(active, r1, r2, uses2, a1, uses_a1, a2, uses_a2,
     * atoms — exact first-wins per slot (ops/sweep.atoms_first_wins).
 
     The rule is deterministic and the kept set is mutually
-    conflict-free. The Pallas sweep kernel implements the identical
-    rule (via match-matrices) so CPU and TPU paths agree."""
+    conflict-free."""
     B = r1.shape[0]
     lane = jnp.arange(B, dtype=jnp.int32)
     NRs = consts.n_rows  # sentinel row index (dropped)
@@ -206,8 +216,7 @@ def _keep(active, r1, r2, uses2, a1, uses_a1, a2, uses_a2,
     ok = rmin[r1] >= lane_f
     ok &= jnp.where(uses2, rmin[r2] >= lane_f, True)
 
-    # exact first-wins on atoms (f32 scatter-min is fine on the CPU
-    # backend where the XLA sweep runs)
+    # exact first-wins on atoms
     amin = jnp.full((consts.capacity + 1,), float(B), jnp.float32)
     amin = amin.at[jnp.where(active & uses_a1, a1,
                              consts.capacity)].min(lane_f, mode="drop")
@@ -224,11 +233,11 @@ def _keep(active, r1, r2, uses2, a1, uses_a1, a2, uses_a2,
 
 def sweep(key: jax.Array, atoms: AtomTable, M: jnp.ndarray,
           mstate, temp: jnp.ndarray, remaining: jnp.ndarray,
-          consts: SamplerConsts, mass: MassParams, *, model
-          ) -> Tuple[AtomTable, jnp.ndarray, object, jnp.ndarray,
-                     SweepCounts]:
+          consts: SamplerConsts, mass: MassParams, *, model,
+          lanes: bool = False):
     """One batched proposal sweep. Returns
-    (atoms, M, mstate, n_processed, counts).
+    (atoms, M, mstate, n_processed, counts), plus a LaneStats when
+    `lanes` is set.
 
     `model` is a trace-time adapter built per update-phase
     (dense.make_model / sparse.make_model) exposing:
@@ -248,8 +257,7 @@ def sweep(key: jax.Array, atoms: AtomTable, M: jnp.ndarray,
     n = atoms.n
 
     # one (16, B) uniform block per sweep — rows 0-4 drive type/accept
-    # draws, rows 5-8 drive selection; the layout is shared verbatim with
-    # the Pallas kernel's pre-drawn slabs (ops/pallas_sweep.py)
+    # draws, rows 5-8 drive selection
     uni = jax.random.uniform(key, (16, B), jnp.float32)
     u1, u2, u_gibbs, u_exp, u_acc = (uni[j] for j in range(5))
     ui = uni[5:9].T
@@ -391,8 +399,7 @@ def sweep(key: jax.Array, atoms: AtomTable, M: jnp.ndarray,
     up_r = jnp.concatenate([r1, r2])
     up_c = jnp.concatenate([c1, c2])
     up_d = jnp.concatenate([d1, d2])
-    up_e = up_r * K + up_c  # flat element index: 1-D gathers/scatters are
-    # measurably cheaper than 2-D fancy indexing on this backend
+    up_e = up_r * K + up_c  # flat element index: 1-D gathers/scatters
     M_flat = M.reshape(-1)
     old = M_flat[up_e]
     actual = jnp.maximum(old + up_d, 0.0) - old
@@ -468,7 +475,19 @@ def sweep(key: jax.Array, atoms: AtomTable, M: jnp.ndarray,
         processed=cnt_i32(is_birth, is_death, is_move, is_exch),
         accepted=cnt_i32(birth_acc, death_kill | death_rebirth, move_acc,
                          ex_acc))
-    return atoms, M, mstate, n_processed, counts
+    if not lanes:
+        return atoms, M, mstate, n_processed, counts
+    kind = jnp.select([is_birth, is_death, is_move, is_exch],
+                      [T_BIRTH, T_DEATH, T_MOVE, T_EXCHANGE], -1)
+    stat = jnp.select([is_birth, is_death, is_move],
+                      [b_mass, dll_death, dll_move],
+                      jnp.minimum(nm1, nm2))
+    threshold = jnp.where(is_death | is_move, log_u, EPS)
+    lane_stats = LaneStats(
+        kind=kind.astype(jnp.int32),
+        passed=birth_acc | death_rebirth | move_acc | ex_acc,
+        stat=stat, threshold=threshold)
+    return atoms, M, mstate, n_processed, counts, lane_stats
 
 
 def run_updates(key: jax.Array, atoms: AtomTable, M: jnp.ndarray,
@@ -487,9 +506,13 @@ def run_updates(key: jax.Array, atoms: AtomTable, M: jnp.ndarray,
     def body(carry):
         done, i, atoms, M, mstate, counts = carry
         k = jax.random.fold_in(key, i)
-        atoms, M, mstate, n_proc, c = sweep(
-            k, atoms, M, mstate, temp, n_steps - done, consts, mass,
-            model=model)
+        # named scopes ("sweep" here, "rebuild" on the per-call tables,
+        # "stats" on the bookkeeping) let a profiler trace attribute
+        # device time by layer (tools/profile_sweep.py)
+        with jax.named_scope("sweep"):
+            atoms, M, mstate, n_proc, c = sweep(
+                k, atoms, M, mstate, temp, n_steps - done, consts, mass,
+                model=model)
         counts = SweepCounts(processed=counts.processed + c.processed,
                              accepted=counts.accepted + c.accepted)
         return (done + n_proc, i + 1, atoms, M, mstate, counts)

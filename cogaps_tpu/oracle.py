@@ -5,7 +5,7 @@ SingleThreadedGibbsSampler (reference:
 src/gibbs_sampler/SingleThreadedGibbsSampler.h:95-257) over the dense
 normal model (src/gibbs_sampler/DenseNormalModel.cpp) and the true
 2^64-position atomic domain (src/atomic/AtomicDomain.cpp) — used as a
-DISTRIBUTION-level oracle for the batched TPU engine (VERDICT r4 #7).
+DISTRIBUTION-level oracle for the batched engine.
 
 This sampler keeps every reference behavior the batched engine
 re-designs, so the two can be compared at equilibrium to validate the

@@ -1,7 +1,7 @@
 """Data-parallel chains: vmapped independent Gibbs chains sharded over a
 device mesh.
 
-This is the TPU equivalent of the reference's process-level parallelism
+This is the JAX equivalent of the reference's process-level parallelism
 (one forked C++ engine per data subset, reference:
 R/DistributedCogaps.R:56-67 with BiocParallel::MulticoreParam): chains are
 completely independent until the tiny consensus gather, so we stack their
@@ -54,15 +54,8 @@ def _init_stats_batch(config, n_chains, n_genes, n_samples, hist):
 
 def _phase_span_multi(config, consts_a, consts_p, hist, phase, data,
                       state, stats, keys, start, stop):
-    from ..engine import run_iteration_batch, _resolve_use_pallas
-    use_batch = (_resolve_use_pallas(config)
-                 and consts_a.axis_name is None)
-
     def body(it, carry):
         st, sts = carry
-        if use_batch:
-            return run_iteration_batch(config, consts_a, consts_p, hist,
-                                       phase, data, it, st, sts, keys)
         st, sts = jax.vmap(
             functools.partial(run_iteration, config, consts_a, consts_p,
                               hist, phase),
@@ -211,138 +204,20 @@ class MultichainEngine:
             lambda x: jax.device_put(x, sharding) if x.ndim > 0 else x, tree)
 
     # ------------------------------------------------------------------
-    # ------------------------------------------------------------------
-    # fused span fast path: whole iterations inside one kernel
-    # (ops/pallas_iter.py) — applicable to the production/bench config
-    # (no histories/snapshots/pump/fixed matrix, n_samples <= 128)
-    _FUSED_CHUNK = 50  # iterations per pallas_call (watchdog-bounded)
-
-    def _fused_ok(self) -> bool:
-        import jax as _jax
-        from ..engine import _resolve_use_pallas
-        cfg = self.config
-        return (_resolve_use_pallas(cfg)
-                and _jax.default_backend() not in ("cpu",)
-                and self.mesh is None
-                and cfg.which_matrix_fixed == "N"
-                and self.hist.n_hist == 0 and cfg.n_snapshots == 0
-                and not cfg.take_pump_samples
-                and self.n_samples <= 128
-                # VMEM bound: the span kernel's static tables + carry
-                # fit up to 8 fused chains on a v5e core; at 16 the
-                # scoped allocation is 115.6M vs the 100M limit
-                # (measured round 5 — the 2B-lane merged transports did
-                # not close the gap). (A split per-sampler variant
-                # fitting 16 was measured ~5% SLOWER there: its
-                # in-kernel P-rebuild pays sublane-contraction
-                # relayouts.)
-                and self.n_chains <= 8)
-
-    def _fused_span(self, phase: int, n_it: int):
-        """Build (and cache) the jitted fused-span runner for a span of
-        n_it iterations of `phase`."""
-        key = (phase, n_it)
-        cache = getattr(self, "_fused_cache", None)
-        if cache is None:
-            cache = self._fused_cache = {}
-        if key in cache:
-            return cache[key]
-
-        from ..engine import _pallas_batch
-        from ..ops.pallas_iter import run_span_fused, prepare_span_data
-        from ..ops.pallas_sweep import to_slab, from_slab
-        cfg = self.config
-        ck_a = self.consts_a._replace(
-            batch=_pallas_batch(self.consts_a.batch, cfg))
-        ck_p = self.consts_p._replace(
-            batch=_pallas_batch(self.consts_p.batch, cfg))
-        NCH = self.n_chains
-        chunks = []
-        off = 0
-        while off < n_it:
-            chunks.append((off, min(self._FUSED_CHUNK, n_it - off)))
-            off += self._FUSED_CHUNK
-
-        def runner(span, data, state, stats, keys, start):
-            M2a = to_slab(state.M_a)
-            M2p = to_slab(state.M_p)
-            accum = (to_slab(stats.a_sum), to_slab(stats.a_sumsq),
-                     to_slab(stats.p_sum), to_slab(stats.p_sumsq))
-            atoms_a, atoms_p = state.atoms_a, state.atoms_p
-            n_stat = stats.n_stat
-            lo = stats.upd_lo
-            hi = stats.upd_hi
-            prop = stats.prop_counts
-            acc = stats.acc_counts
-            sw = stats.sweep_counts
-            base = (keys[:, 0] ^ keys[:, 1]).astype(jnp.int32)
-            for off, clen in chunks:
-                seeds = ((base ^ ((phase * 1000003 + start + off)
-                                  * jnp.int32(1103515245)))
-                         & jnp.int32(0xFFFFFF))
-                (atoms_a, atoms_p, M2a, M2p, accum, ns_inc, done,
-                 cnts) = run_span_fused(
-                    span, atoms_a, atoms_p, M2a, M2p, accum, seeds,
-                    start + off, clen, phase, ck_a, ck_p,
-                    self.data.mass_a, self.data.mass_p,
-                    n_iterations=cfg.n_iterations,
-                    s_max_a=cfg.s_max, s_max_p=cfg.s_max,
-                    accumulate=(phase == 1))
-                n_stat = n_stat + ns_inc
-                lo2 = lo + done
-                lo = lo2 & ((1 << 30) - 1)
-                hi = hi + (lo2 >> 30)
-                sw = sw.at[:, 0].add(cnts[:, 0].astype(jnp.int32))
-                sw = sw.at[:, 1].add(cnts[:, 1].astype(jnp.int32))
-                prop = prop.at[:, 0].add(
-                    cnts[:, 2:6].astype(jnp.int32))
-                acc = acc.at[:, 0].add(cnts[:, 6:10].astype(jnp.int32))
-                prop = prop.at[:, 1].add(
-                    cnts[:, 10:14].astype(jnp.int32))
-                acc = acc.at[:, 1].add(
-                    cnts[:, 14:18].astype(jnp.int32))
-            G, S = self.n_genes, self.n_samples
-            k = cfg.n_patterns
-            state = ChainState(atoms_a=atoms_a, atoms_p=atoms_p,
-                               M_a=from_slab(M2a, G, k),
-                               M_p=from_slab(M2p, S, k))
-            stats2 = stats.replace(
-                a_sum=from_slab(accum[0], G, k),
-                a_sumsq=from_slab(accum[1], G, k),
-                p_sum=from_slab(accum[2], S, k),
-                p_sumsq=from_slab(accum[3], S, k),
-                n_stat=n_stat, upd_lo=lo, upd_hi=hi,
-                prop_counts=prop, acc_counts=acc, sweep_counts=sw)
-            return state, stats2
-
-        if not hasattr(self, "_span_tables"):
-            from ..ops.pallas_iter import prepare_span_data
-            self._span_tables = prepare_span_data(self.data.D,
-                                                  self.data.invS2)
-        jitted = jax.jit(functools.partial(runner, self._span_tables,
-                                           self.data))
-        cache[key] = jitted
-        return jitted
-
     def run_phase(self, state, stats, seed_keys, phase: int,
                   start_iter=0, stop_iter=None
                   ) -> Tuple[ChainState, RunStats]:
         from ..engine import dispatch_spans
         stop = self.config.n_iterations if stop_iter is None else stop_iter
-        fused = self._fused_ok()
         for a, b in dispatch_spans(start_iter, stop,
                                    self.config.dispatch_iters):
-            if fused:
-                state, stats = self._fused_span(phase, b - a)(
-                    state, stats, seed_keys, jnp.asarray(a, jnp.int32))
-            else:
-                state, stats = self._run_phase(
-                    phase, self.data, state, stats, seed_keys,
-                    jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32))
+            state, stats = self._run_phase(
+                phase, self.data, state, stats, seed_keys,
+                jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32))
         return state, stats
 
     # ------------------------------------------------------------------
-    # per-shard checkpointing for multichain runs (VERDICT r3 #10): the
+    # per-shard checkpointing for multichain runs: the
     # chain axis is the sharded one; each process writes the chains it
     # holds. The reference's distributed mode has no checkpointing at
     # all (R/HelperFunctions.R:237-238) — this is parity-plus.

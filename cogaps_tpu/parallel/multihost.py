@@ -2,9 +2,9 @@
 per-shard checkpointing.
 
 The reference's only distribution mechanism is single-machine
-BiocParallel forks (reference: R/DistributedCogaps.R:56-67); the TPU
+BiocParallel forks (reference: R/DistributedCogaps.R:56-67); the JAX
 equivalent spans hosts: `jax.distributed.initialize` brings up the
-cross-process runtime (ICI within a slice, DCN across), a global mesh
+cross-process runtime, a global mesh
 spans every process's devices, and pjit/shard_map programs written
 against that mesh run unchanged — the collectives the engines already
 use (psum of conditional tables and chi^2, parallel/sharded.py and
@@ -26,9 +26,10 @@ import numpy as np
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> int:
-    """Bring up the multi-process JAX runtime. With no arguments, reads
-    the standard JAX env vars / cloud-TPU metadata (the common case on a
-    TPU pod). Returns this process's index. Safe to call once."""
+    """Bring up the multi-process JAX runtime from explicit arguments,
+    or from COGAPS_COORDINATOR / COGAPS_NUM_PROCESSES /
+    COGAPS_PROCESS_ID; with neither it does nothing (single process).
+    Returns this process's index. Safe to call once."""
     import jax
 
     if num_processes is not None and num_processes > 1:

@@ -243,12 +243,16 @@ class ShardedGapsEngine:
                     g_blk, k * k)
                 ixt = ix.T  # (S, g_blk)
                 sq = jnp.dot(ixt, Mx * Mx,
-                             preferred_element_type=jnp.float32)
-                z = jnp.dot(ixt, oo, preferred_element_type=jnp.float32)
+                             preferred_element_type=jnp.float32,
+                             precision=dense.HIGHEST)
+                z = jnp.dot(ixt, oo, preferred_element_type=jnp.float32,
+                            precision=dense.HIGHEST)
                 R = (Dx.T - jnp.dot(M_p, Mx.T,
-                                    preferred_element_type=jnp.float32)
+                                    preferred_element_type=jnp.float32,
+                                    precision=dense.HIGHEST)
                      ) * ixt
-                Y = jnp.dot(R, Mx, preferred_element_type=jnp.float32)
+                Y = jnp.dot(R, Mx, preferred_element_type=jnp.float32,
+                            precision=dense.HIGHEST)
                 cmax = jnp.max(Mx, axis=0)
                 return sq, z, Y, cmax
 
@@ -329,8 +333,8 @@ class ShardedGapsEngine:
 
                 def blk_cs(Mx, Dx, ix):
                     R = (Dx - jnp.dot(
-                        Mx, M_p.T,
-                        preferred_element_type=jnp.float32)) * ix
+                        Mx, M_p.T, preferred_element_type=jnp.float32,
+                        precision=dense.HIGHEST)) * ix
                     return jnp.sum(jnp.where(ix > 0, R * R / ix, 0.0))
 
                 parts = jax.lax.map(lambda t: blk_cs(*t),
@@ -419,7 +423,7 @@ class ShardedGapsEngine:
         return np.asarray(arr)[: self.n_genes_orig]
 
     # ------------------------------------------------------------------
-    # per-shard checkpointing (VERDICT r3 #10): each process writes only
+    # per-shard checkpointing: each process writes only
     # its addressable shards; resume re-places them on the current mesh.
     # The single-chip engine's npz checkpoints (utils/checkpoint.py)
     # cover api runs; these cover the sharded mode the reference lacks.

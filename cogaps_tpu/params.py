@@ -1,4 +1,4 @@
-"""Run parameters for the TPU-native CoGAPS engine.
+"""Run parameters for the CoGAPS engine.
 
 Mirrors the capability surface of the reference's two parameter layers:
 the R S4 class ``CogapsParams`` (reference: R/class-CogapsParams.R:44-123)
@@ -7,8 +7,8 @@ Defaults follow the R layer (nIterations=50000, alpha=0.01, maxGibbsMass=100,
 nSets=4, cut=nPatterns, minNS=ceil(nSets/2), maxNS=minNS+nSets,
 reference: R/class-CogapsParams.R:99-123).
 
-TPU-specific additions (no counterpart in the reference, which tunes
-OpenMP threads instead): ``batch_size_*`` (width of the vectorized
+Engine additions (no counterpart in the reference, which tunes OpenMP
+threads instead): ``batch_size_*`` (width of the vectorized
 conflict-free proposal sweep), ``atom_capacity_*`` (static capacity of the
 on-device atom tables), and ``n_chains`` (vmapped independent chains
 per device).
@@ -80,7 +80,7 @@ class CogapsParams:
     running_distributed: bool = False
     print_messages: bool = True
 
-    # ---- TPU engine knobs (new; no reference counterpart) ----
+    # ---- engine knobs (new; no reference counterpart) ----
     batch_size_a: Optional[int] = None  # proposal sweep width for the A sampler
     batch_size_p: Optional[int] = None
     atom_capacity_a: Optional[int] = None
@@ -89,14 +89,10 @@ class CogapsParams:
     # conditional-mean cache exactly at every sampler phase (models/dense.py)
     rebuild_interval: int = 100
     n_chains: int = 1  # independent vmapped chains
-    # max iterations per device dispatch: long-running single XLA programs
-    # trip device-side watchdogs (observed on TPU v5e at ~2000 GIST
-    # iterations in one program), so phases run as a host-side loop of
-    # bounded spans; the per-span dispatch cost (~100us) is negligible.
+    # max iterations per device dispatch: phases run as a host-side loop
+    # of bounded spans, and the live progress line and checkpoint
+    # chunking act at span boundaries (engine.dispatch_spans)
     dispatch_iters: int = 250
-    # None = auto (fused Pallas sweep kernel on TPU backends, XLA sweep on
-    # CPU); True/False force. ops/pallas_sweep.py documents why.
-    use_pallas: Optional[bool] = None
     # move proposals: symmetric local window (the reference's
     # neighbor-bounded move analog; required for mixing under sharp
     # custom-uncertainty posteriors) vs global-uniform targets
@@ -244,24 +240,18 @@ class CogapsParams:
         n_bins_p = n_samples * k
 
         def default_batch(n_rows: int) -> int:
-            # wide batches use the uncontested-only conflict rule
-            # (ops/sweep.py), whose expected survivor count
-            # B*exp(-B/n_rows) peaks at B ~ n_rows — oversampling past
-            # that only wastes draws. Above ~64k rows the fused
-            # kernel's slab-major row tables already dominate scoped
-            # VMEM; a 1024-wide sweep then overflows the ~110 MB cap
-            # (measured at 120k rows), so tall samplers cap at 512.
-            cap = 512 if n_rows >= (1 << 16) else 1024
-            return max(32, min(cap, _next_pow2(n_rows)))
+            # the expected count of row-conflict survivors per sweep,
+            # B*exp(-B/n_rows), peaks at B ~ n_rows — oversampling past
+            # that only wastes draws
+            return max(32, min(1024, _next_pow2(n_rows)))
 
         def default_capacity(n_bins: int) -> int:
             # stationary atom counts on real data sit well under 0.5
             # atom/bin (GIST k=7 equilibrates at ~3.5k atoms over 9.5k
             # bins), so nBins/2 rounded up still leaves >2x headroom;
-            # every atom-table matmul in the fused kernel scales with
-            # capacity, so the table is kept as small as safely
-            # possible (atom_capacity_a/p override when a dataset runs
-            # hotter — the capacity guard blocks births at the brim)
+            # the table is kept as small as safely possible
+            # (atom_capacity_a/p override when a dataset runs hotter —
+            # the capacity guard blocks births at the brim)
             return max(1 << 10, min(1 << 22, _next_pow2(n_bins) // 2))
 
         return EngineConfig(
@@ -282,7 +272,6 @@ class CogapsParams:
             snapshot_phase=self.snapshot_phase,
             take_pump_samples=bool(self.take_pump_samples),
             dispatch_iters=int(self.dispatch_iters),
-            use_pallas=self.use_pallas,
             local_moves=bool(self.local_moves),
         )
 
@@ -309,16 +298,4 @@ class EngineConfig:
     snapshot_phase: str
     take_pump_samples: bool
     dispatch_iters: int = 250
-    use_pallas: Optional[bool] = None
     local_moves: bool = True
-    # pallas kernel knobs: per-call sweep cap (the outer while_loop
-    # continues on Poisson tails, so a tight cap just avoids skipped-cond
-    # overhead) and the batch clamp (B <= 256 also keeps the rank/count
-    # matmuls single-pass-exact)
-    s_max: int = 32
-    pallas_max_batch: int = 256
-    # sparse table-builder mode, resolved by the sparse engines from
-    # data size: "dense" (Wd fast path), "ell" (ELL-native builder —
-    # no dense weights, VERDICT r4 #5), "xla" (sweep fallback).
-    # None = unresolved (dense engines ignore it).
-    sparse_table_mode: Optional[str] = None

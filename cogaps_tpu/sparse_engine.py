@@ -6,7 +6,9 @@ tables regenerated at each sampler sync (reference:
 SparseNormalModel.cpp:294-311 via sync, GapsRunner.cpp:202-222), no
 residual cache, closed-form chi^2. Custom uncertainty is not supported —
 the model's math assumes the implied default (reference:
-R/HelperFunctions.R:223-224).
+R/HelperFunctions.R:223-224). Nothing here builds a dense
+(genes x samples) array: every per-proposal quantity comes from the
+ELL nonzeros and k x k Gram tables.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from .engine import (EQUILIBRATION, HistConfig, RunStats, accumulate_stats,
                      derive_hist, init_run_stats)
@@ -26,6 +27,7 @@ from .ops import rng as gaps_rng
 from .ops.atoms import AtomTable, init_atoms
 from .ops.sweep import MassParams, SamplerConsts, make_consts, run_updates
 from .params import EngineConfig
+from .utils.pytree import pytree_dataclass
 
 
 class SparseDeviceData(NamedTuple):
@@ -33,38 +35,9 @@ class SparseDeviceData(NamedTuple):
     ell_p: sparse.EllMatrix  # sample-major nonzeros (P-sampler layout)
     mass_a: MassParams
     mass_p: MassParams
-    # dense weight matrices for the fused-kernel table builder
-    # (models/sparse.kernel_tables); None when the dense (G x S) weights
-    # exceed the fast-path memory bound -> XLA sweep fallback
-    Wd_a: object = None  # (G, S) or None
-    D1_a: object = None
 
 
-# dense-weight fast path bound: 2 arrays of this many f32s (the 10k-cell
-# scCoGAPS config is ~2e8); beyond it the ELL-native table builder
-# (models/sparse.kernel_tables_ell) keeps the fused kernel without
-# dense weights as long as the G tables ((G + S) * k^2) fit; only past
-# THAT does the engine fall to the XLA sweep (atlas k=50 sharded runs)
-_FAST_PATH_MAX_ELEMS = 250_000_000
-_ELL_TABLE_MAX_ELEMS = 300_000_000
-
-
-def _resolve_sparse_mode(n_genes: int, n_samples: int, k: int) -> str:
-    if n_genes * n_samples <= _FAST_PATH_MAX_ELEMS:
-        return "dense"
-    if ((n_genes + n_samples) * k * k <= _ELL_TABLE_MAX_ELEMS
-            and max(n_genes, n_samples) <= (1 << 15)):
-        # tall data overflows the VMEM-resident sweep kernel's scoped
-        # VMEM regardless of batch/capacity tuning (measured k=7: 20k x
-        # 120k needs 114M vs the ~110M cap even at B=256/capacity 2^16;
-        # 20k x 60k also OOMs; boundary not bisected below that) — that
-        # regime belongs to the HBM-DMA atlas kernel
-        # (parallel/atlas_engine.AtlasEngine / run_atlas)
-        return "ell"
-    return "xla"
-
-
-@struct.dataclass
+@pytree_dataclass
 class SparseChainState:
     atoms_a: AtomTable
     atoms_p: AtomTable
@@ -101,26 +74,7 @@ def run_iteration_sparse(cfg: EngineConfig, consts_a: SamplerConsts,
     done_p = jnp.zeros((), jnp.int32)
     obs_a = obs_p = None
 
-    from .engine import _resolve_use_pallas, _pallas_batch
-    mode = cfg.sparse_table_mode or (
-        "dense" if data.Wd_a is not None else "xla")
-    use_pallas = _resolve_use_pallas(cfg) and mode != "xla"
-
-    def run_upd(k2, atoms, M, n_upd, consts, mparams, ell, Wd, D1,
-                other):
-        if use_pallas:
-            from .ops.pallas_sweep import run_updates_pallas_tables
-            ck = consts._replace(batch=_pallas_batch(consts.batch, cfg))
-            if mode == "ell":
-                SQ, Y0, G = sparse.kernel_tables_ell(ell, other, M)
-            else:
-                SQ, Y0, G = sparse.kernel_tables(Wd, D1, other, M)
-            atoms, M, done, ns, cnt = run_updates_pallas_tables(
-                k2, atoms, M, temp, n_upd, ck, mparams,
-                SQ=SQ, Y0=Y0, Z_flat=G, other_M=other,
-                s_max=cfg.s_max,
-                interpret=jax.default_backend() == "cpu")
-            return atoms, M, done, ns, cnt
+    def run_upd(k2, atoms, M, n_upd, consts, mparams, ell, other):
         model = sparse.make_model(ell, sparse.make_sparse_phase(other))
         atoms, M, _, done, ns, cnt = run_updates(
             k2, atoms, M, (), temp, n_upd, consts, mparams, model=model)
@@ -129,14 +83,12 @@ def run_iteration_sparse(cfg: EngineConfig, consts_a: SamplerConsts,
     if fixed != "A":
         atoms_a, M_a, done_a, ns_a, cnt_a = run_upd(
             kua, atoms_a, M_a, n_a, consts_a, data.mass_a,
-            data.ell_a, data.Wd_a, data.D1_a, M_p)
+            data.ell_a, M_p)
         obs_a = (ns_a, cnt_a)
     if fixed != "P":
-        Wd_p = None if data.Wd_a is None else data.Wd_a.T
-        D1_p = None if data.D1_a is None else data.D1_a.T
         atoms_p, M_p, done_p, ns_p, cnt_p = run_upd(
             kup, atoms_p, M_p, n_p, consts_p, data.mass_p,
-            data.ell_p, Wd_p, D1_p, M_a)
+            data.ell_p, M_a)
         obs_p = (ns_p, cnt_p)
 
     state = SparseChainState(atoms_a=atoms_a, atoms_p=atoms_p,
@@ -167,20 +119,17 @@ _jit_sparse_phase_span = jax.jit(_sparse_phase_span,
 
 
 # ----------------------------------------------------------------------
-# concurrent sparse multichain (VERDICT r4 #6): all subset chains of a
+# concurrent sparse multichain: all subset chains of a
 # sparse distributed run execute as ONE program — the reference runs all
 # workers simultaneously (R/DistributedCogaps.R:64-67); the dense path
 # has had this since round 3 (parallel/multichain.py), this is the
-# sparse counterpart. On TPU the fast path dispatches both samplers as
-# one NCH-fused tables kernel (run_updates_pallas_tables_multi); the
-# CPU/fallback path vmaps the XLA sweep.
+# sparse counterpart: the XLA sweep vmapped over the chain axis.
 # ----------------------------------------------------------------------
 def run_iteration_sparse_batch(cfg: EngineConfig, consts_a, consts_p,
                                hist: HistConfig, phase: int,
                                data: SparseDeviceData, it,
                                state: SparseChainState, stats: RunStats,
                                base_keys):
-    from .engine import _pallas_batch, _resolve_use_pallas
     fixed = cfg.which_matrix_fixed
     NCH = state.M_a.shape[0]
     n_genes = state.M_a.shape[1]
@@ -206,29 +155,8 @@ def run_iteration_sparse_batch(cfg: EngineConfig, consts_a, consts_p,
     done_a = jnp.zeros((NCH,), jnp.int32)
     done_p = jnp.zeros((NCH,), jnp.int32)
     obs_a = obs_p = None
-    mode = cfg.sparse_table_mode or (
-        "dense" if data.Wd_a is not None else "xla")
-    use_pallas = _resolve_use_pallas(cfg) and mode != "xla"
-    interp = jax.default_backend() == "cpu"
 
-    def run_upd(keys2, atoms, M, n_upd, consts, mparams, ell, Wd, D1,
-                other):
-        if use_pallas:
-            from .ops.pallas_sweep import run_updates_pallas_tables_multi
-            ck = consts._replace(batch=_pallas_batch(consts.batch, cfg))
-            if mode == "ell":
-                SQ, Y0, G = jax.vmap(
-                    lambda i, v, o, m2: sparse.kernel_tables_ell(
-                        sparse.EllMatrix(idx=i, val=v), o, m2))(
-                    ell.idx, ell.val, other, M)
-            else:
-                SQ, Y0, G = jax.vmap(sparse.kernel_tables)(Wd, D1,
-                                                           other, M)
-            return run_updates_pallas_tables_multi(
-                keys2, atoms, M, temp, n_upd, ck, mparams,
-                SQ=SQ, Y0=Y0, Z_flat=G, other_M=other,
-                s_max=cfg.s_max, interpret=interp)
-
+    def run_upd(keys2, atoms, M, n_upd, consts, mparams, ell, other):
         def one(key_i, atoms_i, M_i, n_i, lam_i, mgm_i, idx_i, val_i,
                 other_i):
             model = sparse.make_model(
@@ -246,16 +174,12 @@ def run_iteration_sparse_batch(cfg: EngineConfig, consts_a, consts_p,
     if fixed != "A":
         atoms_a, M_a, done_a, ns_a, cnt_a = run_upd(
             kua, atoms_a, M_a, n_a, consts_a, data.mass_a,
-            data.ell_a, data.Wd_a, data.D1_a, M_p)
+            data.ell_a, M_p)
         obs_a = (ns_a, cnt_a)
     if fixed != "P":
-        Wd_p = None if data.Wd_a is None else jnp.swapaxes(
-            data.Wd_a, 1, 2)
-        D1_p = None if data.D1_a is None else jnp.swapaxes(
-            data.D1_a, 1, 2)
         atoms_p, M_p, done_p, ns_p, cnt_p = run_upd(
             kup, atoms_p, M_p, n_p, consts_p, data.mass_p,
-            data.ell_p, Wd_p, D1_p, M_a)
+            data.ell_p, M_a)
         obs_p = (ns_p, cnt_p)
 
     state = SparseChainState(atoms_a=atoms_a, atoms_p=atoms_p,
@@ -353,22 +277,12 @@ def stack_sparse_device_data(Ds, cfg: EngineConfig,
         lam_a[i] = cfg.alpha_a * np.sqrt(k / nnz_mean)
         lam_p[i] = cfg.alpha_p * np.sqrt(k / nnz_mean)
 
-    if len(Ds) * G * S <= _FAST_PATH_MAX_ELEMS:
-        Wds, D1s = zip(*[sparse.dense_weights(e, S) for e in ells_a])
-        Wd_a = jnp.stack([jnp.pad(w, ((0, 0), (0, S - w.shape[1])))
-                          for w in Wds])
-        D1_a = jnp.stack([jnp.pad(d, ((0, 0), (0, S - d.shape[1])))
-                          for d in D1s])
-    else:
-        Wd_a = D1_a = None
-
     data = SparseDeviceData(
         ell_a=ell_a, ell_p=ell_p,
         mass_a=MassParams(jnp.asarray(lam_a),
                           jnp.asarray(cfg.max_gibbs_mass_a / lam_a)),
         mass_p=MassParams(jnp.asarray(lam_p),
-                          jnp.asarray(cfg.max_gibbs_mass_p / lam_p)),
-        Wd_a=Wd_a, D1_a=D1_a)
+                          jnp.asarray(cfg.max_gibbs_mass_p / lam_p)))
     return data, shapes
 
 
@@ -462,28 +376,19 @@ class SparseGapsEngine:
             ell_p = sparse.to_ell(D.T)
             self.data_sparsity = sparse.sparsity(D)
         k = config.n_patterns
-        mode = config.sparse_table_mode or _resolve_sparse_mode(
-            self.n_genes, self.n_samples, k)
-        import dataclasses as _dc
-        self.config = config = _dc.replace(config,
-                                           sparse_table_mode=mode)
+        self.config = config
         self.hist = derive_hist(config)
 
         lam_a = float(config.alpha_a) * float(np.sqrt(k / nnz_mean))
         lam_p = float(config.alpha_p) * float(np.sqrt(k / nnz_mean))
         self.lam_a, self.lam_p = lam_a, lam_p
-        if mode == "dense":
-            Wd_a, D1_a = sparse.dense_weights(ell_a, self.n_samples)
-        else:
-            Wd_a = D1_a = None
         self.data = SparseDeviceData(
             ell_a=ell_a,
             ell_p=ell_p,
             mass_a=MassParams(jnp.float32(lam_a),
                               jnp.float32(config.max_gibbs_mass_a / lam_a)),
             mass_p=MassParams(jnp.float32(lam_p),
-                              jnp.float32(config.max_gibbs_mass_p / lam_p)),
-            Wd_a=Wd_a, D1_a=D1_a)
+                              jnp.float32(config.max_gibbs_mass_p / lam_p)))
 
         self.consts_a = make_consts(self.n_genes, self.n_samples, k,
                                     config.capacity_a, config.batch_a,

@@ -7,7 +7,7 @@ during the write (reference: src/GapsRunner.cpp:225-270,
 src/utils/Archive.h:16-17). Resume reproduces the run exactly even if a
 different seed argument is passed (tests/testthat/test_checkpoints.R:9-15).
 
-TPU version: the chain state is a flat pytree of arrays (factor matrices,
+Here the chain state is a flat pytree of arrays (factor matrices,
 atom tables, residual, statistics sums) plus three scalars (phase,
 iteration, seed) — the counter-based RNG needs no stored stream state, only
 the original seed, so resume-with-different-seed-argument exactness holds

@@ -40,7 +40,7 @@ def build_report() -> str:
         f"backend: {jax.default_backend()}",
         f"devices: {[str(d) for d in jax.devices()]}",
         f"process: {jax.process_index()}/{jax.process_count()}",
-        "sweep kernel: fused Pallas (TPU) / XLA (CPU, sharded)",
+        "sweep: XLA (ops/sweep.py) on every backend",
         "checkpoints: enabled",
     ]
     return "\n".join(lines)

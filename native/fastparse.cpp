@@ -1,4 +1,4 @@
-// Native streaming matrix parsers — the TPU framework's equivalent of the
+// Native streaming matrix parsers — this framework's equivalent of the
 // reference's C++ file_parser layer (reference: src/file_parser/
 // CharacterDelimitedParser.cpp, MtxParser.cpp, FileParser.cpp:9-19).
 // Python binds via ctypes (cogaps_tpu/io/native.py); the pure-Python

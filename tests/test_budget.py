@@ -1,4 +1,4 @@
-"""Update-budget draw equivalence (VERDICT r4 weak #7).
+"""Update-budget draw equivalence.
 
 The engine fast paths draw the per-iteration update budget with a
 normal approximation (`ops/rng.poisson_fast`) instead of an exact

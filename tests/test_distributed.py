@@ -221,7 +221,7 @@ def test_multichain_matches_serial_subset_runs(modsim):
 @pytest.mark.parametrize("mode", ["single-cell", "genome-wide"])
 def test_distributed_sparse_concurrent(modsim, mode):
     """scCoGAPS/GWCoGAPS with sparseOptimization runs all subset chains
-    as ONE chain-batched program (VERDICT r4 #6; reference runs workers
+    as ONE chain-batched program (reference runs workers
     concurrently, R/DistributedCogaps.R:64-67) and produces a sound
     factorization."""
     D, A, P = modsim

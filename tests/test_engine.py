@@ -73,7 +73,7 @@ def test_nonnegativity(modsim):
 
 
 def test_seed_determinism(modsim):
-    """Same seed => bit-identical results (the TPU analog of the
+    """Same seed => bit-identical results (the analog of the
     reference's nThreads-invariance contract,
     tests/testthat/test_seed_consistency.R:36-68)."""
     D, _, _ = modsim

@@ -132,7 +132,7 @@ def test_gist_custom_uncertainty_converges():
     default-uncertainty run), so the oracle is convergence itself:
     chi^2 must descend to the chi^2/N ~ 1 regime, which requires the
     local move window (global-uniform moves mix too slowly here —
-    PERF_NOTES.md; reference move semantics:
+    reference move semantics:
     SingleThreadedGibbsSampler.h:192-223)."""
     z = np.load(os.path.join(DATA, "gist.npz"))
     D, U = np.asarray(z["D"]), np.asarray(z["uncertainty"])

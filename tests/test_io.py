@@ -9,7 +9,8 @@ import pytest
 from cogaps_tpu.io import parsers
 from cogaps_tpu.result import CogapsResult
 
-REF = "/root/repo/data"
+REF = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
 
 
 @pytest.mark.skipif(not os.path.exists(f"{REF}/GIST.csv"),

@@ -2,6 +2,7 @@
 fork-join layer, R/DistributedCogaps.R:56-67 — here jax.distributed +
 per-shard checkpoints)."""
 
+import os
 import subprocess
 import sys
 
@@ -11,6 +12,8 @@ import numpy as np
 import pytest
 
 from cogaps_tpu.parallel import multihost
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_sharded_checkpoint_roundtrip(tmp_path):
@@ -45,8 +48,8 @@ def test_two_process_cpu_run():
     chain of a multichain engine over the global mesh and writes its
     shard checkpoint; process 0 reassembles the global state."""
     r = subprocess.run(
-        [sys.executable, "/root/repo/tools/multihost_demo.py", "launch",
-         "2"],
+        [sys.executable, os.path.join(REPO, "tools", "multihost_demo.py"),
+         "launch", "2"],
         capture_output=True, text=True, timeout=570)
     assert r.returncode == 0, r.stdout + r.stderr
     assert '"restore": "ok"' in r.stdout

@@ -1,9 +1,8 @@
-"""Batched-engine equilibrium vs the sequential reference-exact oracle
-(VERDICT r4 #7).
+"""Batched-engine equilibrium vs the sequential reference-exact oracle.
 
 The oracle (cogaps_tpu/oracle.py) mirrors the reference's sequential
 sampler proposal-by-proposal — neighbor-bounded moves, successor
-exchanges, per-proposal alpha evaluation. The batched TPU engine
+exchanges, per-proposal alpha evaluation. The batched engine
 re-designs all three (local move windows, uniform exchange partners,
 sweep-start alphas with first-wins conflicts). These tests pin that the
 re-design leaves the EQUILIBRIUM unchanged: chi^2 and atom counts agree

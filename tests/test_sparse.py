@@ -132,218 +132,48 @@ def test_sparse_rejects_custom_uncertainty(sparse_data):
                uncertainty=np.full_like(sparse_data, 0.5))
 
 
-def test_kernel_tables_match_closed_forms():
-    """The fused-kernel table formulation (models/sparse.kernel_tables:
-    SQ = diag G, smu = beta*T4 - M.G[:,c]) must reproduce the sparse
-    model's closed-form alphaParameters, including pair terms — the
-    correctness basis of the sparse TPU path."""
-    import jax.numpy as jnp
-    from cogaps_tpu.models import sparse as sp
-    from cogaps_tpu.ops.sweep import AddrBatch
-
-    rng = np.random.default_rng(5)
-    G_, S_, k = 40, 23, 4
-    D = rng.gamma(2.0, 1.0, (G_, S_)) * (rng.random((G_, S_)) < 0.4)
-    D = D.astype(np.float32)
-    ell = sp.to_ell(D)
-    other = jnp.asarray(rng.gamma(2.0, 1.0, (S_, k)), jnp.float32)
-    M = jnp.asarray(rng.gamma(2.0, 0.5, (G_, k)), jnp.float32)
-
-    B = 64
-    r1 = jnp.asarray(rng.integers(0, G_, B), jnp.int32)
-    c1 = jnp.asarray(rng.integers(0, k, B), jnp.int32)
-    r2 = jnp.asarray(rng.integers(0, G_, B), jnp.int32)
-    c2 = jnp.asarray(rng.integers(0, k, B), jnp.int32)
-    # force some same-row pairs (the x-term path)
-    r2 = r2.at[:16].set(r1[:16])
-    addr = AddrBatch(r1=r1, c1=c1, r2=r2, c2=c2)
-
-    model = sp.make_model(ell, sp.make_sparse_phase(other))
-    ab = model.alpha((), M, addr)
-
-    Wd, D1 = sp.dense_weights(ell, S_)
-    SQ, Y0, Gf = sp.kernel_tables(Wd, D1, other, M)
-    k_ = k
-    s1_t = SQ[r1, c1]
-    smu1_t = Y0[r1, c1]
-    x_t = Gf.reshape(G_, k_, k_)[r1, c1, c2]
-    same = (r1 == r2)
-    s_pair_t = jnp.where(same, SQ[r1, c1] + SQ[r2, c2] - 2.0 * x_t,
-                         SQ[r1, c1] + SQ[r2, c2])
-    smu_pair_t = Y0[r1, c1] - Y0[r2, c2]
-
-    tol = dict(rtol=2e-3, atol=2e-2)
-    np.testing.assert_allclose(np.asarray(s1_t), np.asarray(ab.s1), **tol)
-    np.testing.assert_allclose(np.asarray(smu1_t), np.asarray(ab.smu1),
-                               **tol)
-    np.testing.assert_allclose(np.asarray(s_pair_t),
-                               np.asarray(ab.s_pair), **tol)
-    np.testing.assert_allclose(np.asarray(smu_pair_t),
-                               np.asarray(ab.smu_pair), **tol)
+def _avals(jaxpr):
+    """Every intermediate's abstract value, through nested jaxprs."""
+    for eqn in jaxpr.eqns:
+        yield from (v.aval for v in eqn.outvars)
+        for p in eqn.params.values():
+            for sub in (p if isinstance(p, (list, tuple)) else (p,)):
+                sub = getattr(sub, "jaxpr", sub)
+                if hasattr(sub, "eqns"):
+                    yield from _avals(sub)
 
 
-def test_sparse_tables_kernel_path_runs():
-    """The sparse TPU path (run_updates_pallas_tables, interpret mode)
-    completes its budget, keeps the atom table compact and reaches a
-    sane fit on a sparse toy — the end-to-end smoke of the fused
-    sparse path."""
-    import jax
-    import jax.numpy as jnp
-    from cogaps_tpu.models import sparse as sp
-    from cogaps_tpu.ops.atoms import AtomTable, total_mass_per_element
-    from cogaps_tpu.ops.pallas_sweep import run_updates_pallas_tables
-    from cogaps_tpu.ops.sweep import MassParams, make_consts
-
-    rng = np.random.default_rng(2)
-    G_, S_, k = 30, 12, 3
-    D = (rng.gamma(2.0, 1.0, (G_, S_))
-         * (rng.random((G_, S_)) < 0.5)).astype(np.float32)
-    ell = sp.to_ell(D)
-    Wd, D1 = sp.dense_weights(ell, S_)
-    other = jnp.asarray(rng.gamma(2.0, 1.0, (S_, k)), jnp.float32)
-
-    consts = make_consts(G_, S_, k, 512, 64, 0.01)
-    n0 = 40
-    elem = jnp.asarray(np.where(np.arange(512) < n0,
-                                rng.integers(0, G_ * k, 512), -1),
-                       jnp.int32)
-    mass = jnp.asarray(np.where(np.arange(512) < n0,
-                                rng.gamma(2.0, 1.0, 512), 0.0),
-                       jnp.float32)
-    atoms = AtomTable(mass=mass, elem=elem,
-                      n=jnp.asarray(n0, jnp.int32))
-    M = total_mass_per_element(atoms, G_ * k).reshape(G_, k)
-    SQ, Y0, Gf = sp.kernel_tables(Wd, D1, other, M)
-    mp = MassParams(lam=jnp.float32(0.05),
-                    max_gibbs_mass=jnp.float32(100.0 / 0.05))
-    a2, M2, done, ns, cnt = run_updates_pallas_tables(
-        jax.random.PRNGKey(3), atoms, M, jnp.float32(1.0),
-        jnp.asarray(150, jnp.int32), consts, mp,
-        SQ=SQ, Y0=Y0, Z_flat=Gf, other_M=other, s_max=16,
-        interpret=True)
-    assert int(done) == 150
-    n = int(a2.n)
-    e = np.asarray(a2.elem)
-    assert (e[:n] >= 0).all() and (e[n:] == -1).all()
-    # M stays the bin-sum of atom masses (drift oracle)
-    M_re = np.zeros(G_ * k, np.float32)
-    np.add.at(M_re, e[:n], np.asarray(a2.mass)[:n])
-    np.testing.assert_allclose(np.asarray(M2).reshape(-1), M_re,
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_sparse_tables_kernel_multi_matches_single():
-    """The chain-batched sparse tables kernel
-    (run_updates_pallas_tables_multi, interpret mode) reproduces the
-    single-chain path chain-by-chain — the correctness basis of the
-    concurrent sparse multichain engine (VERDICT r4 #6)."""
-    import jax
-    import jax.numpy as jnp
-    from cogaps_tpu.models import sparse as sp
-    from cogaps_tpu.ops.atoms import AtomTable, total_mass_per_element
-    from cogaps_tpu.ops.pallas_sweep import (
-        run_updates_pallas_tables, run_updates_pallas_tables_multi)
-    from cogaps_tpu.ops.sweep import MassParams, make_consts
-
-    rng = np.random.default_rng(5)
-    G_, S_, k, NCH = 20, 10, 3, 2
-    consts = make_consts(G_, S_, k, 256, 64, 0.01)
-
-    chains = []
-    for ch in range(NCH):
-        D = (rng.gamma(2.0, 1.0, (G_, S_))
-             * (rng.random((G_, S_)) < 0.5)).astype(np.float32)
-        ell = sp.to_ell(D)
-        Wd, D1 = sp.dense_weights(ell, S_)
-        other = jnp.asarray(rng.gamma(2.0, 1.0, (S_, k)), jnp.float32)
-        n0 = 25
-        elem = jnp.asarray(np.where(np.arange(256) < n0,
-                                    rng.integers(0, G_ * k, 256), -1),
-                           jnp.int32)
-        mass = jnp.asarray(np.where(np.arange(256) < n0,
-                                    rng.gamma(2.0, 1.0, 256), 0.0),
-                           jnp.float32)
-        atoms = AtomTable(mass=mass, elem=elem,
-                          n=jnp.asarray(n0, jnp.int32))
-        M = total_mass_per_element(atoms, G_ * k).reshape(G_, k)
-        SQ, Y0, Gf = sp.kernel_tables(Wd, D1, other, M)
-        chains.append(dict(atoms=atoms, M=M, SQ=SQ, Y0=Y0, Gf=Gf,
-                           other=other, key=jax.random.PRNGKey(100 + ch)))
-
-    mp1 = MassParams(lam=jnp.float32(0.05),
-                     max_gibbs_mass=jnp.float32(100.0 / 0.05))
-    singles = [run_updates_pallas_tables(
-        c["key"], c["atoms"], c["M"], jnp.float32(1.0),
-        jnp.asarray(80, jnp.int32), consts, mp1, SQ=c["SQ"], Y0=c["Y0"],
-        Z_flat=c["Gf"], other_M=c["other"], s_max=16, interpret=True)
-        for c in chains]
-
-    stk = lambda name: jnp.stack([c[name] for c in chains])
-    atoms_b = AtomTable(
-        mass=jnp.stack([c["atoms"].mass for c in chains]),
-        elem=jnp.stack([c["atoms"].elem for c in chains]),
-        n=jnp.stack([c["atoms"].n for c in chains]))
-    mpN = MassParams(lam=jnp.full((NCH,), 0.05, jnp.float32),
-                     max_gibbs_mass=jnp.full((NCH,), 100.0 / 0.05,
-                                             jnp.float32))
-    a2, M2, done, ns, cnt = run_updates_pallas_tables_multi(
-        jnp.stack([c["key"] for c in chains]), atoms_b, stk("M"),
-        jnp.float32(1.0), jnp.full((NCH,), 80, jnp.int32), consts, mpN,
-        SQ=stk("SQ"), Y0=stk("Y0"), Z_flat=stk("Gf"),
-        other_M=stk("other"), s_max=16, interpret=True)
-
-    for ch in range(NCH):
-        a1, M1, d1, ns1, cnt1 = singles[ch]
-        assert int(done[ch]) == int(d1) == 80
-        np.testing.assert_array_equal(np.asarray(M2[ch]),
-                                      np.asarray(M1))
-        np.testing.assert_array_equal(np.asarray(a2.mass[ch]),
-                                      np.asarray(a1.mass))
-        np.testing.assert_array_equal(np.asarray(a2.elem[ch]),
-                                      np.asarray(a1.elem))
-
-
-def test_kernel_tables_ell_matches_dense_weights():
-    """The ELL-native table builder (no dense weights — VERDICT r4 #5)
-    reproduces the dense-weight builder's SQ/Y0/G tables."""
-    import jax.numpy as jnp
-    from cogaps_tpu.models import sparse as sp
-
-    rng = np.random.default_rng(7)
-    G_, S_, k = 40, 15, 4
-    D = (rng.gamma(2.0, 1.0, (G_, S_))
-         * (rng.random((G_, S_)) < 0.4)).astype(np.float32)
-    ell = sp.to_ell(D)
-    Wd, D1 = sp.dense_weights(ell, S_)
-    other = jnp.asarray(rng.gamma(2.0, 1.0, (S_, k)), jnp.float32)
-    M = jnp.asarray(rng.gamma(1.0, 1.0, (G_, k)), jnp.float32)
-    SQ_d, Y0_d, G_d = sp.kernel_tables(Wd, D1, other, M)
-    SQ_e, Y0_e, G_e = sp.kernel_tables_ell(ell, other, M, row_chunk=16)
-    np.testing.assert_allclose(np.asarray(SQ_e), np.asarray(SQ_d),
-                               rtol=2e-4, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(Y0_e), np.asarray(Y0_d),
-                               rtol=2e-4, atol=2e-3)
-    np.testing.assert_allclose(np.asarray(G_e), np.asarray(G_d),
-                               rtol=2e-4, atol=2e-3)
-
-
-def test_sparse_ell_mode_end_to_end(sparse_data):
-    """Force the ELL-native table mode through a full run: same API
-    surface, sound factorization, no dense weights built."""
-    import dataclasses
-    import jax
+def test_sparse_ell_mode_end_to_end():
+    """A sparse run never builds a dense (genes x samples) array: not in
+    the engine's device data, not in any intermediate of the traced
+    phase program — and it still factorizes soundly end to end."""
     from cogaps_tpu.engine import EQUILIBRATION, SAMPLING
     from cogaps_tpu.params import CogapsParams
-    from cogaps_tpu.sparse_engine import SparseGapsEngine
+    from cogaps_tpu.sparse_engine import SparseGapsEngine, _sparse_phase_span
 
-    params = CogapsParams(n_patterns=3, n_iterations=200, seed=3,
+    rng = np.random.default_rng(4)
+    G_, S_, k = 37, 23, 3
+    A = rng.gamma(2.0, 1.0, (G_, k)) * (rng.random((G_, k)) < 0.5)
+    P = rng.gamma(2.0, 1.0, (S_, k)) * (rng.random((S_, k)) < 0.5)
+    D = (A @ P.T).astype(np.float32)
+    # no fully dense row or column, so no ELL width equals G or S
+    assert (D > 0).sum(1).max() < S_ and (D > 0).sum(0).max() < G_
+    params = CogapsParams(n_patterns=k, n_iterations=200, seed=3,
                           output_frequency=50)
-    cfg = dataclasses.replace(params.engine_config(*sparse_data.shape),
-                              sparse_table_mode="ell")
-    eng = SparseGapsEngine(sparse_data, cfg)
-    assert eng.data.Wd_a is None  # never densified
+    eng = SparseGapsEngine(D, params.engine_config(G_, S_))
+
+    def is_dense(shape):
+        return G_ in shape and S_ in shape
+
+    assert not any(is_dense(x.shape) for x in jax.tree.leaves(eng.data))
     st, ss = eng.init_state(), eng.init_stats()
     key = jax.random.PRNGKey(3)
+    closed = jax.make_jaxpr(_sparse_phase_span, static_argnums=(0, 1, 2, 3, 4))(
+        eng.config, eng.consts_a, eng.consts_p, eng.hist, SAMPLING,
+        eng.data, st, ss, key, 0, 2)
+    shapes = [a.shape for a in _avals(closed.jaxpr) if hasattr(a, "shape")]
+    assert shapes and not any(is_dense(s) for s in shapes)
+
     st, ss = eng.run_phase(st, ss, key, EQUILIBRATION)
     st, ss = eng.run_phase(st, ss, key, SAMPLING)
     h = np.asarray(jax.device_get(ss).chisq_hist)

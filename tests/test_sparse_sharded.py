@@ -70,7 +70,7 @@ def test_sparse_sharded_matches_single_device_shapes(mesh4):
 
 def test_atlas_memory_budget():
     """1M cells x 30k genes, k=50, 5% density over 8 devices must fit
-    comfortably in a v5e-class HBM (16 GB) — the SURVEY §7.10 plan."""
+    comfortably in a 16 GB device memory — the SURVEY §7.10 plan."""
     plan = atlas_memory_plan(n_cells=1_000_000, n_genes=30_000, k=50,
                              density=0.05, n_devices=8)
     assert plan["A_shard"] == 125_000 * 50 * 4  # 25 MB
@@ -78,7 +78,7 @@ def test_atlas_memory_budget():
 
 
 def test_sparse_sharded_checkpoint_resume_exact(mesh4, tmp_path):
-    """Checkpoint parity for the atlas engine (VERDICT r4 missing #3):
+    """Checkpoint parity for the atlas engine:
     save mid-run, resume on the same mesh => bitwise-identical final
     state vs the uninterrupted run (the test_checkpoints.R contract,
     reference: src/GapsRunner.cpp:225-270)."""

@@ -11,11 +11,18 @@ Each process joins via cogaps_tpu.parallel.multihost.initialize_distributed,
 builds the global mesh, runs a short multichain span (one chain per
 process), writes its per-shard checkpoint, and process 0 reassembles and
 validates the global state.
+
+This is an explicit CPU demo: every worker pins itself to the CPU
+backend. A multi-process launch on GPUs would need one card per process
+(a JAX process reserves most of a card's memory), which this script does
+not arrange.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -23,7 +30,8 @@ def worker(pid: int, nproc: int, port: int) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     from cogaps_tpu.parallel import multihost
 
     multihost.initialize_distributed(
@@ -56,7 +64,7 @@ def worker(pid: int, nproc: int, port: int) -> None:
     jax.block_until_ready(state.M_a)
 
     path = multihost.save_sharded_checkpoint(
-        f"/tmp/mh_demo_{port}", state, extra={"pid": np.int32(pid)})
+        os.path.join(tempfile.gettempdir(), f"mh_demo_{port}"), state, extra={"pid": np.int32(pid)})
     # only this process's shards are addressable in multi-process mode
     n_local = [int(np.asarray(s.data).reshape(-1)[0])
                for s in state.atoms_a.n.addressable_shards]
@@ -70,7 +78,8 @@ def worker(pid: int, nproc: int, port: int) -> None:
         time.sleep(3.0)
         structure = jax.tree.map(lambda x: 0, state)
         restored = multihost.load_sharded_checkpoint(
-            f"/tmp/mh_demo_{port}", structure)
+            os.path.join(tempfile.gettempdir(), f"mh_demo_{port}"),
+            structure)
         assert restored.M_a.shape[0] == n_chains
         assert np.abs(restored.M_a).sum() > 0
         print(json.dumps({"restore": "ok",

@@ -5,8 +5,9 @@ GIST-shaped problem, at a configurable chain count (vmap), so per-sweep
 latency and its batch scaling can be measured in isolation from the
 driver. Usage: python tools/perf_sweep.py [n_chains] [K]
 """
-import sys, time
-sys.path.insert(0, "/root/repo")
+import os, sys, time
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 import jax, jax.numpy as jnp, numpy as np
 from cogaps_tpu.io import parsers
 from cogaps_tpu.params import CogapsParams
@@ -70,7 +71,7 @@ def bench_sampler(name, D, invS2, consts, mass, n_atoms0, n_chains, K, seed=0):
 def main():
     n_chains = int(sys.argv[1]) if len(sys.argv) > 1 else 1
     K = int(sys.argv[2]) if len(sys.argv) > 2 else 64
-    D, _, _ = parsers.read_matrix("/root/repo/data/GIST.csv")
+    D, _, _ = parsers.read_matrix(os.path.join(REPO, "data", "GIST.csv"))
     params = CogapsParams(n_patterns=7, n_iterations=1000, seed=1)
     cfg = params.engine_config(*D.shape)
     data = prepare_device_data(D, None, cfg)
